@@ -5,7 +5,7 @@
 // (set_first / calc_res_gs).
 //
 // The per-level selected points are printed and consumed verbatim by the
-// Python side (the TPU build documents an RNG deviation in the level-0
+// Python side (the JAX build documents an RNG deviation in the level-0
 // selector's random directions, so the POINT SET is an input here, not the
 // claim). calcResAndGS is then evaluated at several (T, aff, snapped)
 // states per level; E / alpha / acc9 H,b / Schur H,b are the goldens.

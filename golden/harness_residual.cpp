@@ -4,7 +4,7 @@
 // AccumulatedSCHessian.cpp:32-79) and the vision-only solve path
 // (EnergyFunctional::solveSystemF, EnergyFunctional.cpp:1029-1184) — vs
 // sos_slam_tpu/ops/ba.py (linearize / accumulate_top / accumulate_schur /
-// solve_system / resubstitute) and ops/ba_p.py (fused iteration).
+// solve_system / resubstitute).
 //
 // A 3-frame window over the shared deterministic integer texture (shifted
 // copies ⇒ consistent fronto-parallel scene at ID ≈ 0.5 plus a tiny rotation

@@ -2,7 +2,7 @@
 // (PixelSelector::makeHists, PixelSelector2.cpp:69-145) + makeImages
 // gradients vs sos_slam_tpu/ops/{image,selector}.py.
 //
-// The selection map itself is NOT compared (the TPU build documents an RNG
+// The selection map itself is NOT compared (the JAX build documents an RNG
 // deviation for the per-block random directions); the deterministic surface
 // — gradient pyramid level 0 and the 32x32 histogram-quantile thresholds —
 // is compared bitwise-reproducibly from an integer-derived test image.

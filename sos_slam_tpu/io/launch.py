@@ -7,7 +7,7 @@ parameter semantics of src/main.cpp:96-195 (derived enable switches, preset
 handling, IMU noise -> information weights).
 
 This makes the reference's `tests/<dataset>/*.launch` bundles directly
-loadable by the TPU framework.
+loadable by this framework.
 """
 
 from __future__ import annotations

@@ -60,8 +60,7 @@ class PoseRecorder(Output3DWrapper):
     def _row(shell):
         T = shell.cam_to_world_scaled if shell.cam_to_world_scaled is not None \
             else shell.cam_to_world
-        # numpy-only rotation log (a device dispatch per frame is ~70ms on
-        # the remote-TPU path)
+        # numpy-only rotation log (no device dispatch per frame)
         R = np.asarray(T[:3, :3])
         cos_t = np.clip((np.trace(R) - 1.0) * 0.5, -1.0, 1.0)
         theta = np.arccos(cos_t)

@@ -1,6 +1,6 @@
 """LoopHandler: place recognition + pose-graph backend.
 
-TPU-native rebuild of src/LoopClosure/LoopHandler.{h,cpp}: consumes
+JAX rebuild of src/LoopClosure/LoopHandler.{h,cpp}: consumes
 marginalized keyframes from the odometry front-end (hooked as a publisher
 callback, the same decoupling seam as the reference's Output3DWrapper),
 assembles the imitated-LiDAR scan, matches Scan Context descriptors,

@@ -1,6 +1,6 @@
 """Loop-candidate relative pose: direct alignment + small ICP.
 
-TPU-native rebuild of src/LoopClosure/PoseEstimator.{h,cpp}:
+JAX rebuild of src/LoopClosure/PoseEstimator.{h,cpp}:
   * `estimate`: coarse-to-fine direct photometric alignment of the matched
     keyframe's 3-D points + per-level intensities against the current
     keyframe's pyramid — the same 8-dim SE(3)+affine machinery as the coarse

@@ -1,6 +1,6 @@
 """Sliding-window bundle adjustment driver + marginalization.
 
-TPU-native rebuild of FullSystem::optimize (src/FullSystem/
+JAX rebuild of FullSystem::optimize (src/FullSystem/
 FullSystemOptimize.cpp:305-489) and EnergyFunctional::{marginalizeFrame,
 marginalizePointsF} (src/OptimizationBackend/EnergyFunctional.cpp:730-936).
 
@@ -27,7 +27,6 @@ import jax
 import jax.numpy as jnp
 
 from sos_slam_tpu.ops import ba as B
-from sos_slam_tpu.ops import ba_p as BP
 from sos_slam_tpu.ops import ba_t as BT
 from sos_slam_tpu.utils import lie
 from sos_slam_tpu.utils.config import CPARS, Settings
@@ -37,21 +36,11 @@ HIGH = jax.lax.Precision.HIGHEST
 
 def _iter_quants(ba: B.BAState, pre: B.Precalc, dI: jnp.ndarray,
                  settings: Settings, w: int, h: int) -> dict:
-    """Everything one GN iteration consumes from the (P,F) linearization.
-
-    Dispatches to the Pallas fused kernel (ops/ba_p.py — one kernel for
-    linearize+top+Schur) when enabled, else composes the einsum forms.
-    Returned keys: Htop/btop (no priors), Hsc/bsc, resub (x -> idepth
-    step), HdiF, energy_pf/new_state_pf ((P,F) layout), lin_for_th + upth
-    (the energy-threshold update pair), n_active."""
-    if BP.enabled():
-        fo = BP.fused_iteration(ba, pre, dI, settings, w, h)
-        return dict(
-            Htop=fo.H_top, btop=fo.b_top, Hsc=fo.H_sc, bsc=fo.b_sc,
-            resub=lambda x: BT.resubstitute_t(fo.sc, x), HdiF=fo.sc.HdiF,
-            energy_pf=fo.energy.T, new_state_pf=fo.new_state.T,
-            lin_for_th=fo, upth=BT.update_energy_th_t,
-            n_active=jnp.sum(fo.active))
+    """Everything one GN iteration consumes from the (P,F) linearization,
+    composed from the forms of `_forms()`. Returned keys: Htop/btop (no
+    priors), Hsc/bsc, resub (x -> idepth step), HdiF,
+    energy_pf/new_state_pf ((P,F) layout), lin_for_th + upth (the
+    energy-threshold update pair), n_active."""
     fm = _forms()
     lin = fm["lin"](ba, pre, dI, settings, w, h)
     H_top, b_top = fm["top"](ba, pre, lin)
@@ -67,13 +56,7 @@ def _iter_quants(ba: B.BAState, pre: B.Precalc, dI: jnp.ndarray,
 def _marg_Hb(ba: B.BAState, pre: B.Precalc, dI: jnp.ndarray,
              marg: jnp.ndarray, settings: Settings, w: int, h: int):
     """(H, b, H_sc, b_sc) of the marginalized-point subset, mode 2
-    (FEJ-shifted res_toZero residuals) — fused-kernel or einsum forms."""
-    if BP.enabled():
-        fo = BP.fused_iteration(
-            ba, pre, dI, settings, w, h, pmask=marg, use_rz=True,
-            shift_prior_to_zero=False,
-            prior_fac=settings.idepth_fix_prior_marg_fac)
-        return fo.H_top, fo.b_top, fo.H_sc, fo.b_sc
+    (FEJ-shifted res_toZero residuals)."""
     fm = _forms()
     lin = fm["mask"](fm["lin"](ba, pre, dI, settings, w, h), marg)
     resZ = fm["rz"](ba, pre, lin)
@@ -87,9 +70,9 @@ def _marg_Hb(ba: B.BAState, pre: B.Precalc, dI: jnp.ndarray,
 
 def _forms():
     """BA kernel form dispatch: the reference-shaped (P,F,...) einsum forms
-    (ops/ba.py) or the lanes-last transposed forms (ops/ba_t.py, default on
-    TPU — see ba_t.enabled()). `pf` maps a per-residual (grid-shaped) array
-    to (P,F) layout. Resolved at trace time; both forms are algebraically
+    (ops/ba.py, the default) or the lanes-last transposed forms
+    (ops/ba_t.py, opt-in — see ba_t.enabled()). `pf` maps a per-residual
+    (grid-shaped) array to (P,F) layout. Resolved at trace time; both forms are algebraically
     identical (tests/test_ba_t.py)."""
     if BT.enabled():
         return dict(lin=BT.linearize_t, top=BT.accumulate_top_t,

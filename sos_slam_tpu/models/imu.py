@@ -1,6 +1,6 @@
 """Continuous-time cubic-spline visual-inertial fusion.
 
-TPU-native rebuild of the SOS-SLAM spline VIO:
+JAX rebuild of the SOS-SLAM spline VIO:
   * 21-dim per-keyframe IMU state [ba(3), bg(3), l_rot(3), q(6), c(6)]
     (reference src/FullSystem/HessianBlocks.h:316-424) with spline
     evaluators for predicted acc / gyro / relative rotation;

@@ -1,6 +1,6 @@
 """Monocular bootstrap: joint pose + per-point inverse-depth estimation.
 
-TPU-native rebuild of CoarseInitializer (src/FullSystem/
+JAX rebuild of CoarseInitializer (src/FullSystem/
 CoarseInitializer.{h,cpp}): multi-level point selection with a kNN
 neighbor/parent graph (makeNN, :966-1035), per-level Levenberg optimization
 jointly over SE(3)+affine and all point inverse depths with Schur complement

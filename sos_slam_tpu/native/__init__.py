@@ -28,10 +28,13 @@ def _build() -> Optional[ctypes.CDLL]:
         with open(src, "rb") as f:
             h.update(f.read())
     tag = h.hexdigest()[:12]
-    cache = os.environ.get(
-        "SOS_SLAM_NATIVE_CACHE",
-        os.path.expanduser("~/.cache/sos_slam_native"))
-    os.makedirs(cache, exist_ok=True)
+    # built inside the checkout (listed in .gitignore), keyed by source hash
+    cache = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+        here))), ".native_build")
+    try:
+        os.makedirs(cache, exist_ok=True)
+    except OSError:
+        return None
     lib_path = os.path.join(cache, f"sos_native_{tag}.so")
     if not os.path.exists(lib_path):
         cmd = ["g++", "-O3", "-march=native", "-fopenmp", "-shared", "-fPIC",

@@ -3,7 +3,7 @@
 // The reference's per-frame host pipeline (cv_bridge 8-bit conversion ->
 // photometric response G + vignette division -> bilinear undistortion remap;
 // src/util/Undistort.cpp:160-237,362-441) fused into one OpenMP pass so the
-// TPU receives a single ready irradiance image per frame. This is the
+// device receives a single ready irradiance image per frame. This is the
 // framework's native runtime component: the device computes, the host feeds.
 //
 // Build: g++ -O3 -march=native -fopenmp -shared -fPIC (see native/__init__.py)

@@ -1,7 +1,7 @@
 """Windowed bundle-adjustment kernels: residual linearization, Hessian
 assembly, Schur complement, and the damped solve.
 
-TPU-native rebuild of the reference's optimization backend:
+JAX rebuild of the reference's optimization backend:
   * PointFrameResidual::linearize (src/FullSystem/Residuals.cpp:77-271)
   * AccumulatedTopHessian addPoint/stitch (src/OptimizationBackend/
     AccumulatedTopHessian.cpp:35-303)
@@ -74,9 +74,8 @@ def nth_smallest(e: jnp.ndarray, nth: jnp.ndarray) -> jnp.ndarray:
     """Exact nth-smallest element of a 1-D f32 array (== jnp.sort(e)[nth])
     without a sort: 4-pass radix select over the sign-adjusted f32 bit
     pattern. Each pass is one (P,256) compare + column reduction — ~0.5M
-    VPU ops total vs the O(P log^2 P) padded bitonic sort XLA emits on TPU
-    (the quantile in setNewFrameEnergyTH runs every GN iteration, so the
-    sort was a per-iteration hot spot).
+    elementwise ops total instead of a full sort (the quantile in
+    setNewFrameEnergyTH runs every GN iteration).
 
     Total order matches jnp.sort for all non-NaN values (+-0.0 tie ranks
     deterministically; both bitcast to distinct keys but compare equal as
@@ -374,8 +373,8 @@ def linearize(ba: BAState, pre: Precalc, dI: jnp.ndarray,
     pat_ok &= (Kup > 1.1) & (Kvp > 1.1) & (Kup < w - 3) & (Kvp < h - 3)
 
     # gather hit colors for all target frames in ONE fused 4-corner take
-    # (a vmap over F emits a ~350x slower batched gather; a per-(p,f)
-    # patch-slice variant also measured slower — see interp_bilinear_nfk)
+    # (a vmap over F emits a batched gather instead; see
+    # interp_bilinear_frames and interp_bilinear_nfk)
     hit = interp_bilinear_frames(dI, Kup, Kvp)   # (P,F,8,3)
     hit_ok = jnp.isfinite(hit[..., 0])
     ok = geo_ok[:, :, None] & pat_ok & hit_ok
@@ -648,13 +647,13 @@ def accumulate_top_kr(ba: BAState, pre: Precalc, lin: LinData,
     algebra, different summation shape.
 
     The factored einsum chain materializes (P,F,10,10) blocks from
-    tiny batched 2-contractions (G_gg = X^T JIdx2 X per residual pair),
-    which the TPU executes on the VPU with heavily padded minor dims.
+    tiny batched 2-contractions (G_gg = X^T JIdx2 X per residual pair)
+    with minor dims of 2..10.
     This form instead builds per-(pattern-pixel) 13-rows
     Y = [X^T JI (10) | Jab (2) | r (1)] and reduces the (h,t) cells with
     ONE contraction over the (point, pattern) row axis:
         acc[h,t] = sum_rows onehot_h(row) * Y_i Y_j
-    i.e. a (13 x N)(N x F*13) matmul per target — MXU-shaped where the
+    i.e. a (13 x N)(N x F*13) matmul per target — a GEMM whose
     contraction is over N = P*8 rows. Algebraically identical to
     AccumulatedTopHessian addPoint/stitch (summation order differs ->
     f32 rounding differs at ~1e-6 relative).

@@ -1,6 +1,6 @@
 """Image pyramid, gradients, and bilinear sampling — the per-frame hot path.
 
-TPU-native replacement for FrameHessian::makeImages (reference:
+JAX rebuild of FrameHessian::makeImages (reference:
 src/FullSystem/HessianBlocks.cpp:121-176) and the bilinear interpolation
 helpers (src/util/globalFuncs.h getInterpolatedElement*).
 
@@ -69,29 +69,17 @@ def build_pyramid(
       (levels, abs_sq_grads): levels[l] is (H_l, W_l, 3) [I, dx, dy];
       abs_sq_grads[l] is (H_l, W_l).
     """
-    from sos_slam_tpu.ops import pallas_kernels as PK
-    use_pallas = PK.pallas_enabled()
-
     levels = []
     absgrads = []
     cur = image.astype(jnp.float32)
     for lvl in range(n_levels):
-        if use_pallas:
-            # fused Pallas level: one VMEM pass for gradients + |grad|^2 +
-            # the next level (14x the XLA form on TPU — probe_pallas.py)
-            dI, asg, nxt = PK.fused_pyramid_level(cur)
-            levels.append(dI)
-            img_for_gamma = cur
-            cur = nxt
-        else:
-            if lvl > 0:
-                cur = downsample2x(cur)
-            dx, dy = image_gradients(cur)
-            levels.append(jnp.stack([cur, dx, dy], axis=-1))
-            asg = dx * dx + dy * dy
-            img_for_gamma = cur
+        if lvl > 0:
+            cur = downsample2x(cur)
+        dx, dy = image_gradients(cur)
+        levels.append(jnp.stack([cur, dx, dy], axis=-1))
+        asg = dx * dx + dy * dy
         if gamma_grad is not None:
-            idx = jnp.clip(img_for_gamma.astype(jnp.int32), 0, 255)
+            idx = jnp.clip(cur.astype(jnp.int32), 0, 255)
             gw = gamma_grad[idx]
             asg = asg * gw * gw
         absgrads.append(asg)
@@ -165,11 +153,10 @@ def interp_bilinear_frames(dI: jnp.ndarray, Ku: jnp.ndarray,
     shape (..., F, K) — frame axis second-to-last. Returns (..., F, K[, C]).
 
     ONE fused 4-corner gather over the flattened (F*H*W, C) plane, bitwise
-    identical to a per-frame `interp_bilinear`. NEVER vmap interp_bilinear
-    over the frame axis instead: the batched gather XLA emits for that is
-    ~350x slower on TPU (42 ms vs 0.12 ms at the BA-linearize shape,
-    scripts/probe_lin_gather.py) and was the dominant cost of the entire
-    keyframe chain."""
+    identical to a per-frame `interp_bilinear`. Do not vmap interp_bilinear
+    over the frame axis instead: XLA lowers that to a batched gather, which
+    was far slower than this single flat take on the accelerator the code
+    was first tuned for (not yet re-measured on the GPU)."""
     F, H, W = dI.shape[0], dI.shape[1], dI.shape[2]
     flat = dI.reshape(F * H * W, -1)
     x0 = jnp.clip(jnp.floor(Ku), 0, W - 2).astype(jnp.int32)
@@ -178,8 +165,8 @@ def interp_bilinear_frames(dI: jnp.ndarray, Ku: jnp.ndarray,
     dy = jnp.clip(Kv - y0, 0.0, 1.0)[..., None]
     fofs = (jnp.arange(F, dtype=jnp.int32) * (H * W))[:, None]   # (F,1)
     idx = fofs + y0 * W + x0
-    # ONE take with the 4 corner index planes stacked in front beats four
-    # separate takes by ~16% on the v5e (same element count, one gather op)
+    # ONE take with the 4 corner index planes stacked in front: same element
+    # count as four separate takes, but a single gather op
     idx4 = jnp.stack([idx, idx + 1, idx + W, idx + W + 1], 0)
     c = jnp.take(flat, idx4, axis=0)        # (4, ..., F, K, C)
     out = (
@@ -202,7 +189,7 @@ def in_bounds(u: jnp.ndarray, v: jnp.ndarray, w: int, h: int,
 def interp_bilinear_nfk(dI: jnp.ndarray, Ku: jnp.ndarray, Kv: jnp.ndarray,
                         patch: int = 16):
     """Bilinear-sample (F,H,W,C) at (N,F,K) positions via per-(point,frame)
-    patches — the TPU-fast replacement for scattered gathers when the K
+    patches — an alternative to scattered gathers when the K
     positions of each (point, frame) are clustered (a projected residual
     pattern: spread of a few pixels).
 

@@ -1,6 +1,6 @@
 """Stereo 1-DoF metric-scale optimization.
 
-TPU-native rebuild of ScaleOptimizer (src/FullSystem/ScaleOptimizer.cpp:
+JAX rebuild of ScaleOptimizer (src/FullSystem/ScaleOptimizer.cpp:
 120-437) and the FullSystem::optimizeScale driver (src/FullSystem/
 FullSystem.cpp:1117-1180).
 

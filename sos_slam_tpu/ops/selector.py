@@ -1,4 +1,4 @@
-"""Gradient-based pixel selection, TPU-native.
+"""Gradient-based pixel selection on the device.
 
 Replaces the reference PixelSelector (src/FullSystem/PixelSelector2.{h,cpp})
 with masked hierarchical block-argmax:
@@ -21,7 +21,7 @@ with masked hierarchical block-argmax:
     (makeMaps, PixelSelector2.cpp:146-283) including random sub-sampling when
     over-selected. Each distinct pot compiles once (few small ints).
 
-Selection runs on full (H, W) arrays — ideal VPU shape — and returns a status
+Selection runs on full (H, W) elementwise arrays and returns a status
 map plus a dense score used for deterministic top-K point extraction.
 """
 
@@ -84,7 +84,7 @@ def block_thresholds(
     # the reference's integer histogram quantile (values are already
     # floor()ed ints in [0,48]): the k-th smallest valid value is the first
     # bin whose cumulative count exceeds k — a (50-bin) histogram + cumsum
-    # beats sorting 1024 elements per block on the VPU
+    # instead of sorting 1024 elements per block
     gbi = jnp.where(vb, gb, 49.0).astype(jnp.int32)       # invalid -> bin 49
     counts = jnp.sum(
         (gbi[..., None] == jnp.arange(49, dtype=jnp.int32)).astype(jnp.int32),
@@ -159,11 +159,11 @@ def select(
     # reference border exclusion: xf<4 || xf>=w-5 || yf<4 || yf>h-4
     border = ((xi >= 4) & (xi < w - 5))[None, :] & ((yi >= 4) & (yi <= h - 4))[:, None]
 
-    # per-pixel thresholds from the 32-blocks. NEVER use advanced-indexing
-    # gathers for these regular upsamplings: XLA lowers a (H,W) outer-
-    # product gather catastrophically on TPU (the three gathers here were
-    # 13 of the selector's 13.4 ms); block/2x/4x replication is an exact
-    # repeat (+edge clamp for the partial last block).
+    # per-pixel thresholds from the 32-blocks. No advanced-indexing
+    # gathers for these regular upsamplings: a (H,W) outer-product gather
+    # is a scattered load per pixel, while block/2x/4x replication is an
+    # exact repeat (+edge clamp for the partial last block) that XLA
+    # fuses.
     def _upsample(a, fac):
         r = jnp.repeat(jnp.repeat(a, fac, 0), fac, 1)
         if r.shape[0] < h or r.shape[1] < w:   # clamp-to-last-block tail
@@ -287,7 +287,7 @@ def make_pixel_status(dI: jnp.ndarray, desired: float, min_use_grad: float = 10.
 
 
 # pot values are STATIC jit arguments: each distinct value costs a full XLA
-# compile of `select` (minutes on the remote-compile TPU path). Snap the
+# compile of `select`. Snap the
 # adaptive potential to this ladder so the program count stays bounded.
 POT_LADDER = (1, 2, 3, 4, 6, 8, 12, 16)
 
@@ -299,8 +299,8 @@ def _snap_pot(pot: int) -> int:
 def pot_step(pot: int, up: bool) -> int:
     """Adjacent ladder rung. The density adaptation moves ONE rung per
     keyframe instead of jumping straight to the ideal potential: every
-    rung is a full XLA program variant (the fused keyframe chain is ~30
-    min of remote compile), so the reachable-rung set must stay small and
+    rung is a full XLA program variant of the fused keyframe chain (a
+    long compile), so the reachable-rung set must stay small and
     prewarmable. Convergence takes a couple of keyframes instead of one."""
     i = POT_LADDER.index(_snap_pot(pot))
     j = min(i + 1, len(POT_LADDER) - 1) if up else max(i - 1, 0)

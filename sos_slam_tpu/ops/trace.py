@@ -1,6 +1,6 @@
 """Immature points: epipolar-line depth search and activation.
 
-TPU-native rebuild of ImmaturePoint::traceOn (src/FullSystem/
+JAX rebuild of ImmaturePoint::traceOn (src/FullSystem/
 ImmaturePoint.cpp:70-415), ImmaturePoint::linearizeResidual (:475-545) and
 FullSystem::optimizeImmaturePoint (src/FullSystem/FullSystemOptPoint.cpp:
 47-192).
@@ -114,17 +114,17 @@ SWEEP_PATCH = 56
 
 def _sweep_energy_patch(img, ptx, pty, dxn, dyn, rot_pat, color, aff, huber):
     """(N, MAX_STEPS) pattern energies along the epipolar segment — the
-    TPU-fast form of the reference's errors[] loop (ImmaturePoint.cpp
+    batched form of the reference's errors[] loop (ImmaturePoint.cpp
     discrete search).
 
-    Scattered bilinear gathers lower to slow element-wise loads on TPU, so
-    instead each point extracts one (P, P) patch around its segment (a
-    coherent dynamic-slice; the segment + rotated pattern fits by
-    construction) and samples all MAX_STEPS x 8 taps as two hat-weight
-    matmuls on the MXU. bf16 operands with f32 accumulation: the sweep only
-    brackets the subsequent f32 Gauss-Newton refinement, and the ~0.4%
-    rounding is far below the photometric noise the Huber handles.
-    Measured 5.6x faster than the flat gather at N=2048."""
+    Instead of MAX_STEPS x 8 scattered bilinear gathers per point, each
+    point extracts one (P, P) patch around its segment (a coherent
+    dynamic-slice; the segment + rotated pattern fits by construction) and
+    samples all taps as two hat-weight matmuls. bf16 operands with f32
+    accumulation: the sweep only brackets the subsequent f32 Gauss-Newton
+    refinement, and the ~0.4% rounding is far below the photometric noise
+    the Huber handles. Whether this beats the flat gather on the GPU is not
+    yet measured."""
     N = ptx.shape[0]
     P = SWEEP_PATCH
     h, w = img.shape
@@ -325,8 +325,8 @@ def trace_points(
     carry = (bestU, bestV, jnp.full((N,), 1e5), bestU, bestV,
              jnp.zeros(N), jnp.zeros(N, bool))
     # unrolled: the iteration count is a small static setting, and XLA
-    # fuses unrolled bodies far better than a while-loop (measured ~5x
-    # per-iteration cost inside lax loops on TPU)
+    # fuses unrolled bodies across iterations, which a while-loop body
+    # boundary prevents
     for _it in range(settings.trace_gn_iterations):
         carry = gn_body(_it, carry)
     bestU, bestV, best_e_gn, _, _, _, _ = carry
@@ -382,6 +382,58 @@ def trace_points(
     )
 
 
+def activation_pass(imm: ImmatureState, Rp, tp, ap, KliP, dI, idepth,
+                    oob_in, clamp: bool, intr, w: int, h: int,
+                    huber_th: float):
+    """One GN linearization of optimizeImmaturePoint's 1-DoF idepth
+    problem (FullSystemOptPoint.cpp:47-192, linearizeResidual
+    ImmaturePoint.cpp:475-545) for every candidate against every frame.
+
+    Rp (N,F,3,3), tp (N,F,3), ap (N,F,2): host->frame rotation, translation
+    and affine transfer per point; KliP (N,8,3): the pattern's unprojected
+    host rays; dI (F,H,W,3); idepth (N,); oob_in (N,F) bool.
+
+    Returns (e_res (N,F) unclamped, oob (N,F), eN, HN, bN (N,)) with eN
+    clamped at energy_th when clamp=True (outlierTHSlack=1)."""
+    fx, fy, cx, cy = intr
+    ptp = (
+        jnp.einsum("nfij,nkj->nfki", Rp, KliP)
+        + tp[:, :, None, :] * idepth[:, None, None, None]
+    )  # (N,F,8,3)
+    drescale = 1.0 / ptp[..., 2]
+    uu = ptp[..., 0] * drescale
+    vv = ptp[..., 1] * drescale
+    Ku = uu * fx + cx
+    Kv = vv * fy + cy
+    ok = (drescale > 0) & (Ku > 1.1) & (Kv > 1.1) & (Ku < w - 3) & (Kv < h - 3)
+
+    # one fused 4-corner take over all frames (see interp_bilinear_frames)
+    hit = interp_bilinear_frames(dI, Ku, Kv)
+    ok &= jnp.isfinite(hit[..., 0])
+    oob = oob_in | ~jnp.all(ok, -1)     # any bad pattern pixel -> OOB
+
+    r = hit[..., 0] - (ap[..., 0:1] * imm.color[:, None, :] + ap[..., 1:2])
+    ar = jnp.abs(r)
+    hw = jnp.where(ar < huber_th, 1.0, huber_th / jnp.maximum(ar, 1e-9))
+    e_pat = imm.weights[:, None, :] ** 2 * hw * r * r * (2 - hw)
+    e_res = jnp.sum(e_pat, -1)         # (N,F)
+
+    d_id = (
+        hit[..., 1] * fx * drescale * (tp[..., 0:1] - tp[..., 2:3] * uu)
+        + hit[..., 2] * fy * drescale * (tp[..., 1:2] - tp[..., 2:3] * vv)
+    )  # (N,F,8)
+    hw_w = hw * imm.weights[:, None, :] ** 2
+    Hdd_res = jnp.sum(hw_w * d_id * d_id, -1)
+    bd_res = jnp.sum(hw_w * r * d_id, -1)
+
+    live = ~oob
+    ec = jnp.minimum(e_res, imm.energy_th[:, None]) if clamp else e_res
+    eN = jnp.sum(jnp.where(live, ec, 0.0), -1)
+    HN = jnp.sum(jnp.where(live, Hdd_res, 0.0), -1)
+    bN = jnp.sum(jnp.where(live, bd_res, 0.0), -1)
+    return e_res, oob, eN, HN, bN
+
+
 @functools.partial(jax.jit, static_argnames=("w", "h", "settings"))
 def activate_points(
     imm: ImmatureState,
@@ -417,65 +469,9 @@ def activate_points(
         -1,
     )  # (N,8,3)
 
-    from sos_slam_tpu.ops import ba_p as BP
-    fused = BP.enabled()
-
-    def linearize_pass(idepth, oob_in, clamp: bool):
-        """One GN pass: projection + tap gather (XLA) + residual/Huber/
-        d_id math and live-masked frame reductions (Pallas kernel when
-        enabled — ba_p.act_pass; same algebra either way).
-
-        Returns (e_res (N,F) unclamped, oob (N,F), eN, HN, bN (N,)) with
-        eN clamped at energy_th when clamp=True (outlierTHSlack=1)."""
-        ptp = (
-            jnp.einsum("nfij,nkj->nfki", Rp, KliP)
-            + tp[:, :, None, :] * idepth[:, None, None, None]
-        )  # (N,F,8,3)
-        drescale = 1.0 / ptp[..., 2]
-        uu = ptp[..., 0] * drescale
-        vv = ptp[..., 1] * drescale
-        Ku = uu * fx + cx
-        Kv = vv * fy + cy
-        ok = (drescale > 0) & (Ku > 1.1) & (Kv > 1.1) & (Ku < w - 3) & (Kv < h - 3)
-
-        # one fused 4-corner take over all frames (a vmap over F emits a
-        # ~350x slower batched gather on TPU — scripts/probe_lin_gather.py)
-        hit = interp_bilinear_frames(dI, Ku, Kv)
-        ok &= jnp.isfinite(hit[..., 0])
-
-        if fused:
-            a = fx * drescale * (tp[..., 0:1] - tp[..., 2:3] * uu)
-            b = fy * drescale * (tp[..., 1:2] - tp[..., 2:3] * vv)
-            e_res, oobf, eN, HN, bN = BP.act_pass(
-                hit, a, b, ok.astype(jnp.float32), imm.color,
-                imm.weights ** 2, ap, oob_in.astype(jnp.float32),
-                imm.energy_th, clamp=clamp,
-                huber_th=float(settings.huber_th))
-            return e_res, oobf > 0.5, eN, HN, bN
-
-        oob = oob_in | ~jnp.all(ok, -1)     # any bad pattern pixel -> OOB
-
-        r = hit[..., 0] - (ap[..., 0:1] * imm.color[:, None, :] + ap[..., 1:2])
-        ar = jnp.abs(r)
-        hw = jnp.where(ar < settings.huber_th, 1.0,
-                       settings.huber_th / jnp.maximum(ar, 1e-9))
-        e_pat = imm.weights[:, None, :] ** 2 * hw * r * r * (2 - hw)
-        e_res = jnp.sum(e_pat, -1)         # (N,F)
-
-        d_id = (
-            hit[..., 1] * fx * drescale * (tp[..., 0:1] - tp[..., 2:3] * uu)
-            + hit[..., 2] * fy * drescale * (tp[..., 1:2] - tp[..., 2:3] * vv)
-        )  # (N,F,8)
-        hw_w = hw * imm.weights[:, None, :] ** 2
-        Hdd_res = jnp.sum(hw_w * d_id * d_id, -1)
-        bd_res = jnp.sum(hw_w * r * d_id, -1)
-
-        live = ~oob
-        ec = jnp.minimum(e_res, imm.energy_th[:, None]) if clamp else e_res
-        eN = jnp.sum(jnp.where(live, ec, 0.0), -1)
-        HN = jnp.sum(jnp.where(live, Hdd_res, 0.0), -1)
-        bN = jnp.sum(jnp.where(live, bd_res, 0.0), -1)
-        return e_res, oob, eN, HN, bN
+    linearize_pass = functools.partial(
+        activation_pass, imm, Rp, tp, ap, KliP, dI, intr=intr, w=w, h=h,
+        huber_th=settings.huber_th)
 
     idepth0 = 0.5 * (imm.idepth_min + imm.idepth_max)
     idepth0 = jnp.where(jnp.isfinite(idepth0), idepth0, 0.5)

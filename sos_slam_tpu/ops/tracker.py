@@ -1,6 +1,6 @@
 """Direct coarse tracking: frame-to-keyframe photometric alignment.
 
-TPU-native rebuild of CoarseTracker::trackNewestCoarse / calcResPose /
+JAX rebuild of CoarseTracker::trackNewestCoarse / calcResPose /
 calcGSSSEPose (reference: src/FullSystem/CoarseTracker.cpp:366-764).
 
 Design (vs the reference's per-point scalar loop + SSE accumulator):
@@ -8,7 +8,7 @@ Design (vs the reference's per-point scalar loop + SSE accumulator):
     level (u, v, idepth, color, valid).
   * One fused pass per LM iteration: warp all points, bilinear-gather
     [I, dx, dy], compute Huber-weighted residuals AND the 8x8 H / 8-vector b
-    in a single (N,9)^T (N,9) matmul (the Accumulator9 trick -> one MXU op).
+    in a single (N,9)^T (N,9) matmul (the Accumulator9 trick -> one GEMM).
   * Per-point early-exits (OOB, saturation) are masked lanes.
   * The Levenberg loop (accept/reject, lambda, cutoff-repeat) is a
     `lax.while_loop`; the level cascade is statically unrolled. The whole
@@ -258,8 +258,8 @@ def track_level(
     # runs LM_CHUNK iterations per trip (frozen once done/over-budget):
     # device-loop trips have a fixed per-iteration overhead that dwarfs the
     # fused warp+reduce itself, so amortizing it LM_CHUNK-fold cuts the
-    # level cost (LM_CHUNK=2 measured best: steady-state tracking converges
-    # in 1-3 iterations, larger chunks waste passes on done lanes).
+    # level cost (LM_CHUNK=2: steady-state tracking converges in 1-3
+    # iterations, larger chunks waste passes on done lanes).
     def lm_iter(s):
         active = ~s["done"] & (s["it"] < max_iters)
         step, inc_raw = _solve_damped(s["H"], s["b"], s["lam"], fix_a, fix_b)

@@ -2,7 +2,7 @@
 
 The reference is a single-process shared-memory system (SURVEY.md §2.8);
 its only parallelism is a 6-thread map-reduce over residual/point index
-ranges (util/IndexThreadReduce.h). The TPU-native equivalent of that
+ranges (util/IndexThreadReduce.h). The accelerator equivalent of that
 map-reduce is *data parallelism over the point axis*: residual
 linearization, Hessian/Schur accumulation, and idepth resubstitution are
 embarrassingly parallel over points, with one (D,D)-sized psum to stitch —
@@ -17,8 +17,9 @@ Two sharded entry points:
     hypotheses independently — zero communication).
 
 Both compile and run on an N-virtual-device CPU mesh
-(xla_force_host_platform_device_count) for the driver's dry-run, and on a
-real TPU pod slice unchanged.
+(xla_force_host_platform_device_count) for the CPU dry-run
+(`__graft_entry__.dryrun_multichip`). The mesh is a plain 1-D
+`jax.devices()[:n]`; no production path uses it.
 """
 
 from __future__ import annotations

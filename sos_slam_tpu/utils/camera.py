@@ -1,6 +1,6 @@
 """Camera calibration pyramid.
 
-TPU-native equivalent of the reference's global calib pyramid
+JAX equivalent of the reference's global calib pyramid
 (reference: src/util/globalCalib.cpp:39-99): per-level image sizes and
 intrinsics, with the same level-count rule (halve while divisible by 2 and
 area > 5000 px, capped at PYR_LEVELS) and the same synthetic per-level K:

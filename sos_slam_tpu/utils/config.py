@@ -87,7 +87,7 @@ class Settings:
     outlier_th_sum_component: float = 50.0 * 50.0
     marg_weight_fac: float = 0.5 * 0.5
     re_track_threshold: float = 1.5
-    # TPU addition: after the fused step's on-device standard-hypothesis
+    # Addition to the reference: after the fused step's on-device standard-hypothesis
     # retry, the best result is accepted up to this factor over the achieve
     # threshold (the reference would run its 78 rotation restarts and, in
     # practice, keep the same best; escalating to that host phase only pays
@@ -148,7 +148,7 @@ class Settings:
     loop_force_icp: bool = False
     loop_icp_thres: float = 1.0
 
-    # ---- fixed-shape budgets (TPU-specific; pad-and-mask sizes) ----
+    # ---- fixed-shape budgets (jit static shapes; pad-and-mask sizes) ----
     max_window_frames: int = 8        # padded sliding-window size (>= max_frames+1)
     max_points: int = 2048            # padded active-point budget
     max_immature: int = 2048          # padded immature-point budget

@@ -135,3 +135,89 @@ def make_sequence(
         poses.append(T)
         T = (T @ lie.se3_exp(xi)).astype(jnp.float32)
     return jnp.stack(imgs), jnp.stack(idepths), jnp.stack(poses)
+
+
+def make_ba_window(w: int, h: int, n_slots: int, n_frames: int,
+                   n_points: int, p_slots: int, pose_noise: float = 0.0,
+                   idepth_noise: float = 0.0, n_hosts: int = 1,
+                   seed: int = 0):
+    """A filled BA window over the textured plane: `n_frames` of
+    `n_slots` frame slots, `n_points` of `p_slots` point slots on a grid,
+    hosted round-robin-at-random in the first `n_hosts` frames, with
+    Gaussian pose / relative idepth noise. Every point gets a residual to
+    every valid frame but its host; every 17th point's residuals start OOB.
+    Returns (BAState, dI (n_slots, h, w, 3))."""
+    from sos_slam_tpu.ops import ba as B
+    from sos_slam_tpu.ops import image as imops
+    from sos_slam_tpu.utils.config import PATTERN_OFFSETS, default_settings
+
+    settings = default_settings()
+    calib = default_calib(w, h)
+    fx, fy, cx, cy = calib.intrinsics(0)
+    twist = jnp.array([0.04, 0.02, 0.03, 0.004, 0.008, 0.004]) \
+        * (192.0 / w)
+    imgs, idepths, poses = make_sequence(calib, n_frames,
+                                         twist_per_frame=twist, seed=seed)
+    dI = jnp.zeros((n_slots, h, w, 3), jnp.float32)
+    for i in range(n_frames):
+        lv, _ = imops.build_pyramid(imgs[i], 1)
+        dI = dI.at[i].set(lv[0])
+
+    key = jax.random.PRNGKey(seed)
+    gw = int(np.ceil(np.sqrt(n_points)))
+    uu, vv = jnp.meshgrid(jnp.linspace(8, w - 9, gw),
+                          jnp.linspace(8, h - 9, gw))
+    pad = (0, p_slots - n_points)
+    u = jnp.pad(uu.reshape(-1)[:n_points], pad)
+    v = jnp.pad(vv.reshape(-1)[:n_points], pad)
+    pt_valid = jnp.arange(p_slots) < n_points
+    host = jax.random.randint(jax.random.fold_in(key, 1), (p_slots,), 0,
+                              n_hosts)
+    host = jnp.where(pt_valid, host, 0)
+    # each point's pattern colour and true idepth in its own host frame
+    pat = jnp.asarray(PATTERN_OFFSETS)
+    color = jax.vmap(lambda hh, uu_, vv_: imops.interp_bilinear(
+        dI[hh][..., 0], uu_ + pat[:, 0], vv_ + pat[:, 1]))(host, u, v)
+    idp = jax.vmap(lambda hh, uu_, vv_: imops.interp_bilinear(
+        idepths[hh], uu_, vv_))(host, u, v)
+    idp = idp * (1.0 + idepth_noise * jax.random.normal(
+        jax.random.fold_in(key, 2), (p_slots,))) * pt_valid
+
+    T_eval = jnp.stack([jnp.eye(4)] * n_slots)
+    for i in range(n_frames):
+        noise = pose_noise * jax.random.normal(jax.random.fold_in(key, 10 + i),
+                                               (6,))
+        if i == 0:
+            noise = jnp.zeros(6)
+        T_eval = T_eval.at[i].set(lie.se3_exp(noise) @ poses[i])
+
+    frame_valid = jnp.arange(n_slots) < n_frames
+    prior = jnp.zeros((n_slots, 8))
+    prior = prior.at[0, 0:3].set(settings.initial_trans_prior)
+    prior = prior.at[0, 3:6].set(settings.initial_rot_prior)
+    prior = prior.at[0, 6].set(settings.initial_aff_a_prior)
+    prior = prior.at[0, 7].set(settings.initial_aff_b_prior)
+    prior = prior.at[1:, 6].set(settings.affine_opt_mode_a)
+    prior = prior.at[1:, 7].set(settings.affine_opt_mode_b)
+    prior = prior * frame_valid[:, None]
+    res_exist = (pt_valid[:, None] & frame_valid[None, :]
+                 & (jnp.arange(n_slots)[None, :] != host[:, None]))
+    res_state = jnp.where(
+        (jnp.arange(p_slots)[:, None] % 17 == 0) & res_exist,
+        jnp.int8(B.RES_OOB), jnp.int8(B.RES_IN))
+    c = jnp.array([fx, fy, cx, cy]) / B.CALIB_SCALE
+    D = 4 + 8 * n_slots
+    ba = B.BAState(
+        frame_valid=frame_valid, T_cw_eval=T_eval,
+        state=jnp.zeros((n_slots, 8)), state_zero=jnp.zeros((n_slots, 8)),
+        exposure=jnp.ones(n_slots),
+        energy_th=jnp.full((n_slots,), 12.0 * 12.0 * 8.0),
+        prior=prior, c=c, c_zero=c,
+        pt_valid=pt_valid, host=host.astype(jnp.int32), u=u, v=v,
+        color=color, weight=jnp.ones((p_slots, 8)),
+        idepth=idp, idepth_zero=idp,
+        pt_prior=settings.idepth_fix_prior * jnp.ones(p_slots) * pt_valid,
+        res_exist=res_exist, res_state=res_state,
+        HM=jnp.zeros((D, D)), bM=jnp.zeros(D),
+    )
+    return ba, dI

@@ -15,7 +15,7 @@ from sos_slam_tpu.utils import synthetic
 from sos_slam_tpu.utils.config import default_settings
 
 # reader/launch tests are smoke (pure host, ~seconds); test_preset2_e2e is
-# NOT — it runs a 26-frame FullSystem with heavy jits (ADVICE r2)
+# NOT — it runs a 26-frame FullSystem with heavy jits
 smoke = pytest.mark.smoke
 
 
@@ -184,8 +184,8 @@ def _tiny_launch(tmp_path, w=80, h=60):
 
 
 def test_cli_malaga_format(tmp_path, malaga_dir):
-    """__main__ drives the Malaga folder format end-to-end (VERDICT r2 #6:
-    benchmark ladder config #5 must be drivable from the CLI)."""
+    """__main__ drives the Malaga folder format end-to-end (the benchmark
+    ladder's Malaga config must be drivable from the CLI)."""
     from sos_slam_tpu.__main__ import main
     out = tmp_path / "poses.txt"
     rc = main(["--launch", _tiny_launch(tmp_path), "--dataset", malaga_dir,
@@ -232,7 +232,7 @@ def test_boundary_sample_improves_spline_fit():
     """The judge-specified check: with coarse IMU sampling, the spline fit
     over a keyframe interval must get measurably closer to ground truth
     when the interpolated boundary sample at the frame timestamp is
-    included (VERDICT r4 missing #2)."""
+    included."""
     import jax.numpy as jnp
 
     from sos_slam_tpu.io.datasets import slice_imu

@@ -145,7 +145,7 @@ class TestTwoPlanes:
 
 
 class TestFusedGatherPrimitives:
-    """Exact-equivalence tests for the TPU-fast gather/compaction forms
+    """Exact-equivalence tests for the fused gather/compaction forms
     that replaced vmapped gathers and sorts on the hot path."""
 
     def test_interp_bilinear_frames_matches_per_frame(self):

@@ -4,7 +4,7 @@ reprocess/re-dispatch the in-flight frames so that the depth-3 pipeline
 stays bitwise identical to the synchronous path, and a mid-pipeline
 tracking loss must drain cleanly.
 
-These paths fire only on rare events (VERDICT r4 weak #4): each test
+These paths fire only on rare events: each test
 manufactures the event explicitly and asserts the path actually ran.
 """
 

@@ -10,7 +10,7 @@ from sos_slam_tpu.utils import synthetic
 from sos_slam_tpu.utils.config import default_settings
 
 # only the pure-host accumulate/render test is smoke; the real-pipeline
-# test runs a 24-frame FullSystem with big jits (ADVICE r2)
+# test runs a 24-frame FullSystem with big jits
 
 
 
